@@ -1,5 +1,5 @@
 // Native ingest: FASTA/FASTQ parsing + base encoding at memory
-// bandwidth, feeding the TPU pipeline's packed read batches.
+// bandwidth, feeding the device pipeline's packed read batches.
 //
 // Role: the reference pipeline's throughput-critical ingest is native
 // (Jellyfish's C++ parsers — SURVEY.md §3.2); this is the rebuild's

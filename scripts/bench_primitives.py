@@ -1,11 +1,10 @@
-"""Reproduce docs/DESIGN.md's load-bearing primitive measurements
-(VERDICT r2 item 6): one JSON line per measurement, run on whatever
-backend `jax.devices()` gives (the committed numbers are from the real
-TPU; CPU runs exercise the script, not the claims).
+"""Time the primitives the device kernels are built from: one JSON line
+per measurement, on whatever backend `jax.devices()` gives (a CPU run
+exercises the script; only a GPU run says anything about the GPU).
 
     PYTHONPATH=. python scripts/bench_primitives.py [--lanes N]
 
-Measurements (the DESIGN.md "Pallas radix-sort question" evidence):
+Measurements:
   two_word_sort      lexicographic (hi, lo) uint32 sort at several lane
                      counts — the counting kernel's actual primitive
                      (ops/count.py uses jax.lax.sort(num_keys=2))
@@ -13,10 +12,9 @@ Measurements (the DESIGN.md "Pallas radix-sort question" evidence):
                      reorder primitive a radix pass would need
   gather_permute     v[perm] random gather (the scatter's adjoint)
   onehot_matmul      per-256-tile permutation as one-hot bf16 matmul —
-                     the MXU formulation of a radix-pass reorder
-  lookup_binsearch / lookup_join
-                     16x neighbor-probe volume against a sorted 1.5M
-                     spectrum (scripts/micro_lookup.py folded in)
+                     the tensor-core formulation of a radix-pass reorder
+  lookup_binsearch   16x neighbor-probe volume against a sorted 1.5M
+                     spectrum
 """
 
 from __future__ import annotations
@@ -121,7 +119,7 @@ def main() -> int:
          ms=round(ms, 2), tflops=round(flops / ms / 1e9, 3), device=dev)
 
     # lookup: 16 neighbor probes per k-mer against a sorted spectrum
-    from shannon_tpu.ops.spectrum import join_lookup_hilo, lower_bound_hilo
+    from shannon_tpu.ops.spectrum import lookup_hilo
 
     C = 1_572_864
     NQ = 16 * C
@@ -131,13 +129,9 @@ def main() -> int:
     q = rng.integers(0, 2**48, size=NQ, dtype=np.uint64)
     qhi = jnp.asarray((q >> 32).astype(np.uint32))
     qlo = jnp.asarray((q & 0xFFFFFFFF).astype(np.uint32))
-    for name, fn in (
-        ("lookup_binsearch", jax.jit(lower_bound_hilo)),
-        ("lookup_join", jax.jit(join_lookup_hilo)),
-    ):
-        ms = _time(fn, thi, tlo, qhi, qlo)
-        emit(primitive=name, queries=NQ, table=C, ms=round(ms, 2),
-             device=dev)
+    ms = _time(jax.jit(lookup_hilo), thi, tlo, qhi, qlo)
+    emit(primitive="lookup_binsearch", queries=NQ, table=C,
+         ms=round(ms, 2), device=dev)
     return 0
 
 

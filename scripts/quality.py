@@ -1,6 +1,6 @@
 """Regenerate the committed quality artifacts (QUALITY.md + quality.json).
 
-Three regenerable sections, each one command (any backend, CPU or TPU —
+Three regenerable sections, each one command (any backend, CPU or GPU —
 output is backend-independent by the parity contract):
 
   PYTHONPATH=. python scripts/quality.py                    # pinned midscale
@@ -8,8 +8,8 @@ output is backend-independent by the parity contract):
   PYTHONPATH=. python scripts/quality.py --sweep            # sensitivity
 
 quality.json accumulates the sections; QUALITY.md is re-rendered from
-all sections present.  Tracked per round so quality regressions are
-visible in review (VERDICT r1 item 8; r2 items 4 + 8).
+all sections present.  Tracked so quality regressions are visible in
+review.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ SG_COVERAGE = 20.0
 
 
 def run_splicing(backend: str) -> dict:
-    """Splicing-graph quality gate (VERDICT r4 item 5): genes = exon
+    """Splicing-graph quality gate: genes = exon
     chains, isoforms = exon subsets sharing sequence, log-normal
     per-isoform abundances.  Reports exact/partial recall and precision
     overall AND per abundance decile, plus the SF/MB split counts

@@ -1,6 +1,5 @@
-"""RSS breakdown of an end-to-end assembly (VERDICT r3 item 7: the
-9.0GB at 1M reads was never decomposed, and the 100M-read ceiling has
-no memory story without it).
+"""RSS breakdown of an end-to-end assembly: the 100M-read ceiling has no
+memory story without it.
 
 Runs the device pipeline at a given read count, sampling resident-set
 size at every stage boundary AND computing the analytic size of each

@@ -1,11 +1,11 @@
-"""shannon_tpu — a TPU-native de novo RNA-seq transcriptome assembler.
+"""shannon_tpu — a de novo RNA-seq transcriptome assembler in JAX.
 
 A from-scratch rebuild of the capabilities of the reference assembler
 (sreeramkannan/Shannon: information-optimal de novo transcriptome assembly,
-Kannan et al. 2016) designed TPU-first:
+Kannan et al. 2016) designed for an accelerator:
 
-  * k-mer counting as a sort/segment-reduce pipeline on device (XLA sort +
-    Pallas kernels), sharded across chips with a hash all-to-all,
+  * k-mer counting as a sort/segment-reduce pipeline on device (XLA
+    sorts), sharded across devices with a hash all-to-all,
   * error correction (abundance + extension/relative-sibling trimming) as
     vectorized probes into the sorted k-mer spectrum,
   * de Bruijn graph condensation via pointer-jumping on fixed-shape arrays,

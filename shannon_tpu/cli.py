@@ -18,7 +18,7 @@ from shannon_tpu.config import AssemblyConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shannon-tpu",
-        description="TPU-native de novo RNA-seq transcriptome assembler",
+        description="de novo RNA-seq transcriptome assembler in JAX",
     )
     p.add_argument("-o", "--out-dir", required=True, help="output directory")
     src = p.add_argument_group("input (single OR paired)")
@@ -117,8 +117,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.backend == "device":
         enable_compilation_cache()
         from shannon_tpu.parallel.multihost import init_distributed
+        from shannon_tpu.utils.device import require_gpu
 
-        init_distributed()
+        init_distributed()  # before the first backend query
+        require_gpu()
 
     profiler_cm = None
     if args.profile:

@@ -23,7 +23,7 @@ class AssemblyConfig:
     k: int = 24
     """k-mer size.  Reference default K=24 (SURVEY.md §3.1).  Must be <= 32
     so a k-mer packs into a (hi, lo) uint32 pair (2 bits/base, 64 bits max);
-    TPUs have no int64 lanes so all device code is two-word (SURVEY.md §8)."""
+    all device code is two-word, with no 64-bit integers (SURVEY.md §8)."""
 
     min_abundance: int = 0
     """Drop k-mers with count < min_abundance before graph construction
@@ -199,7 +199,7 @@ class AssemblyConfig:
     reproducibility so parity runs are deterministic (SURVEY.md §8 hard
     part 4)."""
 
-    # --- device/layout parameters (TPU-side only; no effect on output) ---
+    # --- device/layout parameters (device side only; no effect on output) ---
     read_pad_length: int = 0
     """Device read-batch width in bases.  0 (default) = auto: sized to
     the dataset's longest read on the 32-base grid (96, 128, 160, ...)

@@ -1,11 +1,11 @@
-"""Native (C++) ingest bindings — ctypes loader with auto-build and a
-pure-Python fallback (SURVEY.md §3.2: the reference's throughput-
+"""Native (C++) ingest bindings: a ctypes loader that builds the
+library on first use (SURVEY.md §3.2: the reference's throughput-
 critical ingest lives in native code; so does ours).
 
-The shared object is built on first use with g++ -O3 into
-~/.cache/shannon_tpu/ (or SHANNON_TPU_NATIVE_DIR) and memoized; every
-entry point degrades gracefully to the Python parser when no compiler
-is available.
+The shared object is built from native/ingest.cpp with g++ -O3 into
+native/build/ inside the checkout, and memoized.  A failed build raises:
+plain FASTA/FASTQ files always take the native parser.  Gzip input has
+its own Python path.
 """
 
 from __future__ import annotations
@@ -17,88 +17,91 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent.parent.parent / "native" / "ingest.cpp"
-_LIB_NAME = "shannon_tpu_ingest.so"
+_ROOT = Path(__file__).resolve().parent.parent.parent / "native"
+_SRC = _ROOT / "ingest.cpp"
+_SO = _ROOT / "build" / "shannon_tpu_ingest.so"
 _lib: ctypes.CDLL | None = None
-_lib_failed = False
 
 
-def _build_dir() -> Path:
-    d = os.environ.get("SHANNON_TPU_NATIVE_DIR")
-    return Path(d) if d else Path.home() / ".cache" / "shannon_tpu"
+def _build() -> None:
+    """Compile _SRC into _SO.  The object is written under a
+    process-unique name and renamed into place, so concurrent builders
+    (test workers) never load a half-written file."""
+    _SO.parent.mkdir(parents=True, exist_ok=True)
+    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+         str(_SRC), "-o", str(tmp)],
+        capture_output=True, text=True, timeout=120,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building the native ingest library failed:\n{proc.stderr}"
+        )
+    os.replace(tmp, _SO)
 
 
-def load() -> ctypes.CDLL | None:
-    """Build (once) and load the native library; None if unavailable."""
-    global _lib, _lib_failed
-    if _lib is not None or _lib_failed:
+def load() -> ctypes.CDLL:
+    """Build (once) and load the native library; raises when the build
+    or the load fails."""
+    global _lib
+    if _lib is not None:
         return _lib
-    try:
-        out = _build_dir()
-        out.mkdir(parents=True, exist_ok=True)
-        so = out / _LIB_NAME
-        if not so.exists() or so.stat().st_mtime < _SRC.stat().st_mtime:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 str(_SRC), "-o", str(so)],
-                check=True, capture_output=True, timeout=120,
-            )
-        lib = ctypes.CDLL(str(so))
-        lib.sti_count_records.restype = ctypes.c_long
-        lib.sti_count_records.argtypes = [ctypes.c_char_p]
-        lib.sti_max_seq_len.restype = ctypes.c_long
-        lib.sti_max_seq_len.argtypes = [ctypes.c_char_p]
-        lib.sti_parse_pack.restype = ctypes.c_long
-        lib.sti_parse_pack.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_long,
-        ]
-        lib.sti_range_count.restype = ctypes.c_long
-        lib.sti_range_count.argtypes = [
-            ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
-        ]
-        lib.sti_parse_pack_records.restype = ctypes.c_long
-        lib.sti_parse_pack_records.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_long,
-            ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_long,
-        ]
-        lib.sti_range_parse.restype = ctypes.c_long
-        lib.sti_range_parse.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_long,
-            ctypes.c_long,
-            ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_long,
-        ]
-        _lib = lib
-    except Exception:
-        _lib_failed = True
-        _lib = None
+    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
+        _build()
+    lib = ctypes.CDLL(str(_SO))
+    lib.sti_count_records.restype = ctypes.c_long
+    lib.sti_count_records.argtypes = [ctypes.c_char_p]
+    lib.sti_max_seq_len.restype = ctypes.c_long
+    lib.sti_max_seq_len.argtypes = [ctypes.c_char_p]
+    lib.sti_parse_pack.restype = ctypes.c_long
+    lib.sti_parse_pack.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_long,
+    ]
+    lib.sti_range_count.restype = ctypes.c_long
+    lib.sti_range_count.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+    ]
+    lib.sti_parse_pack_records.restype = ctypes.c_long
+    lib.sti_parse_pack_records.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_long,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_long,
+    ]
+    lib.sti_range_parse.restype = ctypes.c_long
+    lib.sti_range_parse.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_long,
+        ctypes.c_long,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_long,
+    ]
+    _lib = lib
     return _lib
 
 
 def pack_file(path: str | os.PathLike, pad_length: int = 0):
-    """Parse + encode a FASTA/FASTQ file into a ReadBatch.  Uses the
-    native parser when possible (plain files); gzip or loader failure
-    falls back to the Python path transparently.  pad_length=0 = auto:
-    sized to the file's longest read on the 32-base grid (one extra
-    native scan; never truncates)."""
+    """Parse + encode a FASTA/FASTQ file into a ReadBatch: the native
+    parser for plain files, the Python parser for gzip.  pad_length=0 =
+    auto: sized to the file's longest read on the 32-base grid (one
+    extra native scan; never truncates)."""
     from shannon_tpu.io.fastx import read_fastx
     from shannon_tpu.io.pack import ReadBatch, auto_pad_length, pack_reads
 
     path = Path(path)
-    lib = None if path.suffix == ".gz" else load()
-    if lib is None:
+    if path.suffix == ".gz":
         return pack_reads((s for _, s in read_fastx(path)), pad_length)
+    lib = load()
     n = lib.sti_count_records(str(path).encode())
     if n < 0:
         # malformed for the native fast path; Python parser raises the
@@ -127,19 +130,20 @@ def pack_file_records(
     path: str | os.PathLike, skip: int, count: int, pad_length: int
 ):
     """Parse + encode records [skip, skip + count) by RECORD INDEX —
-    the pair-aligned multi-host ingest primitive (SURVEY.md §8 M5,
-    VERDICT r4 item 8): the left mate file is byte-range-split, each
-    host converts its byte range to a record range, and BOTH mate files
+    the pair-aligned multi-host ingest primitive (SURVEY.md §8 M5): the
+    left mate file is byte-range-split, each host converts its byte
+    range to a record range, and BOTH mate files
     are then read at that record range, keeping every pair co-resident
     on one host.  The skip phase is a pure line scan (no encoding), so
     a host pays O(file) scanning but only O(file/H) parse+encode.
-    Native fast path; Python fallback parses-and-slices."""
+    Native for plain files; gzip (and a native parse that stops short
+    on malformed input) parses-and-slices in Python."""
     from shannon_tpu.io.fastx import read_fastx
     from shannon_tpu.io.pack import ReadBatch, pack_reads
 
     path = Path(path)
-    lib = None if path.suffix == ".gz" else load()
-    if lib is not None:
+    if path.suffix != ".gz":
+        lib = load()
         codes = np.empty((max(count, 1), pad_length), dtype=np.uint8)
         lengths = np.empty(max(count, 1), dtype=np.int32)
         got = lib.sti_parse_pack_records(
@@ -160,11 +164,9 @@ def pack_file_records(
 
 
 def count_records_in_range(path: str | os.PathLike, lo: int, hi: int) -> int:
-    """Records whose header byte lands in [lo, hi) (native; -1-free:
-    raises on failure so callers can fall back explicitly)."""
+    """Records whose header byte lands in [lo, hi) (native; raises on
+    malformed input)."""
     lib = load()
-    if lib is None:
-        raise RuntimeError("native ingest unavailable")
     n = lib.sti_range_count(str(Path(path)).encode(), lo, hi)
     if n < 0:
         raise ValueError(f"malformed FASTA/FASTQ for range count: {path}")
@@ -264,8 +266,8 @@ def pack_file_range(
     [lo, hi) — the per-host ingest primitive (each host of N reads ~1/N
     of the file's bytes instead of parsing everything and slicing;
     SURVEY.md §8 M5).  Partitioning [0, file_size) over hosts yields
-    every record exactly once.  Native fast path with transparent
-    Python fallback (gzip always falls back)."""
+    every record exactly once.  Native parser; input it rejects as
+    malformed goes to the Python reader, which names the fault."""
     from shannon_tpu.io.pack import ReadBatch, pack_reads
 
     path = Path(path)
@@ -276,8 +278,6 @@ def pack_file_range(
             "pack_file + record slicing"
         )
     lib = load()
-    if lib is None:
-        return pack_reads(_py_range_records(path, lo, hi), pad_length)
     pb = str(path).encode()
     n = lib.sti_range_count(pb, lo, hi)
     if n < 0:

@@ -1,4 +1,4 @@
-"""Device (JAX/XLA/Pallas) compute ops — the TPU-native replacements for
+"""Device (JAX/XLA) compute ops — the device replacements for
 the reference's native components (SURVEY.md §3.2):
 
   * kmers.py / count.py: k-mer extraction + sort/segment-reduce counting
@@ -8,7 +8,8 @@ the reference's native components (SURVEY.md §3.2):
   * correction.py: vectorized abundance filter + sibling-ratio pruning
 
 All k-mer values are (hi, lo) uint32 pairs — 2k bits, hi = bits >= 32 —
-because TPUs have no 64-bit integer lanes (SURVEY.md §8 hard part 1).
+so no device code needs 64-bit integers (SURVEY.md §8 hard part 1;
+ROADMAP C2 weighs one 64-bit key).
 """
 
 from shannon_tpu.ops.kmers import extract_kmers, revcomp_hilo  # noqa: F401

@@ -9,15 +9,12 @@ exact components and treats load balance as a scheduling concern:
 `bucket_components` groups components into padded size classes for
 batched processing (SURVEY.md §3.3).
 
-Why this is a host pass over device arrays, not a Pallas kernel: a
-min-label-propagation + pointer-jumping kernel was built and measured
-first (git history, r2) — on TPU its per-round edge relaxation is a
-scatter-min over 4x the node lanes, which this hardware runs ~10-60x
-slower than sorts (docs/DESIGN.md), the round count is
-diameter-dependent (a bounded-round version mis-labeled a ~1M-contig
-graph), and the fixpoint while_loop version crashed the TPU worker at
-the 7M-lane shape.  Connected components is irreducibly
-pointer-chasing; the TPU-native division of labor is: the graph
+Why this is a host pass over device arrays, not a device kernel: a
+min-label-propagation + pointer-jumping kernel's per-round edge
+relaxation is a scatter-min over 4x the node lanes, and its round count
+is diameter-dependent (a bounded-round version mis-labeled a ~1M-contig
+graph).  Connected components is irreducibly pointer-chasing; the
+division of labor is: the graph
 (edges, degrees) is BUILT on device by sort/probe kernels
 (ops/condense), and the one pointer-chasing reduction runs as a C-speed
 sparse pass on host (scipy.sparse.csgraph, O(E)) over those arrays —

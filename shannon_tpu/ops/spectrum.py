@@ -17,23 +17,23 @@ from shannon_tpu.ops.count import Spectrum
 from shannon_tpu.ops.kmers import SENTINEL, canonical_hilo
 
 
-def _le(ah, al, bh, bl):
-    return (ah < bh) | ((ah == bh) & (al <= bl))
-
-
 def _lt(ah, al, bh, bl):
     return (ah < bh) | ((ah == bh) & (al < bl))
 
 
-def lower_bound_hilo(
+def lookup_hilo(
     thi: jnp.ndarray,
     tlo: jnp.ndarray,
     qhi: jnp.ndarray,
     qlo: jnp.ndarray,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Vectorized lower_bound of (qhi, qlo) in the sorted two-word table
-    (thi, tlo).  Returns (index clamped to C-1, exact-hit mask).
-    SENTINEL pads are the maximum key, so probing them is safe."""
+    (thi, tlo): log2(C) gather+compare passes over every query lane at
+    once.  Returns (index clamped to C-1, exact-hit mask).  SENTINEL
+    pads are the maximum key, so probing them is safe.
+
+    The one lookup kernel: on the H100 it beats a sort-merge join of
+    table and queries at both pipeline shapes (PERF.md, PR 1)."""
     C = thi.shape[0]
     n_iter = max(C.bit_length(), 1)
     lo_idx = jnp.zeros(qhi.shape, dtype=jnp.int32)
@@ -66,100 +66,6 @@ def lookup_counts(
     qhi, qlo = qhi.reshape(-1), qlo.reshape(-1)
     idx, hit = lookup_hilo(spec.hi, spec.lo, qhi, qlo)
     return jnp.where(hit, spec.count[idx], 0).reshape(shape)
-
-
-def join_lookup_hilo(
-    thi: jnp.ndarray,
-    tlo: jnp.ndarray,
-    qhi: jnp.ndarray,
-    qlo: jnp.ndarray,
-    verify: bool = True,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Sort-merge-join lookup: exact equivalent of lower_bound_hilo's
-    (index, hit) for bulk query sets, built from two SORTS + cumsums +
-    one monotonic gather instead of a log2(C)-pass gather loop (the
-    sort-beats-gathers rule, docs/DESIGN.md).
-
-    Returns (table index of the query's key — valid where hit — and the
-    exact-hit mask), both in query order and shape."""
-    shape = qhi.shape
-    qhi, qlo = qhi.reshape(-1), qlo.reshape(-1)
-    C = thi.shape[0]
-    nq = qhi.shape[0]
-    m = C + nq
-
-    ch = jnp.concatenate([thi, qhi])
-    cl = jnp.concatenate([tlo, qlo])
-    is_q = jnp.concatenate(
-        [jnp.zeros(C, jnp.uint32), jnp.ones(nq, jnp.uint32)]
-    )
-    pos = jnp.concatenate(
-        [
-            jnp.full(C, 0xFFFFFFFF, jnp.uint32),  # tables: sort last later
-            jax.lax.broadcasted_iota(jnp.uint32, (nq, 1), 0)[:, 0],
-        ]
-    )
-    # join sort: key (hi, lo, is_q) puts each table lane FIRST among
-    # equal keys, queries after it
-    sh, sl, sq, sp = jax.lax.sort((ch, cl, is_q, pos), num_keys=3)
-
-    is_table = sq == 0
-    # original table index of each table lane = its rank among table
-    # lanes (the table is sorted, so join order preserves table order)
-    tbl_rank = jnp.cumsum(is_table.astype(jnp.int32)) - 1
-    # run (= distinct key) bookkeeping
-    prev_same = jnp.zeros(m, bool).at[1:].set(
-        (sh[1:] == sh[:-1]) & (sl[1:] == sl[:-1])
-    )
-    run_id = jnp.cumsum((~prev_same).astype(jnp.int32))
-    last_tbl_run = jax.lax.cummax(jnp.where(is_table, run_id, 0))
-    hit_lane = last_tbl_run == run_id  # my run contains a table lane
-    idx_lane = jnp.maximum(tbl_rank, 0)  # last table lane's table index
-
-    # unsort: queries back to original positions (tables sort last)
-    _, r_idx, r_hit = jax.lax.sort(
-        (sp, idx_lane, hit_lane.astype(jnp.int32)), num_keys=1
-    )
-    idx = jnp.minimum(r_idx[:nq], C - 1)
-    hit = r_hit[:nq] == 1
-    if verify:
-        # re-gather the matched keys and compare.  The run-membership
-        # hit is already exact for real keys (equal-key runs), so this
-        # guards only against queries equal to the SENTINEL pad key —
-        # impossible for k <= 31 2-bit-packed k-mers (hi < 2^(2k-32) <
-        # SENTINEL), hence the threading kernel skips these two bulk
-        # gathers (verify=False; measured: gathers are the slow
-        # primitive on this part, docs/DESIGN.md)
-        hit = hit & (thi[idx] == qhi) & (tlo[idx] == qlo)
-    return idx.reshape(shape), hit.reshape(shape)
-
-
-def lookup_hilo(
-    thi: jnp.ndarray,
-    tlo: jnp.ndarray,
-    qhi: jnp.ndarray,
-    qlo: jnp.ndarray,
-    verify: bool = True,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Exact-hit lookup with shape-static kernel dispatch: sort-merge
-    join for bulk query sets (19x faster at pipeline shapes — 898ms vs
-    17.1s for 25M queries against a 1.6M table, scripts/micro_lookup.py
-    on v5e), log2(C) binary search for small ones (the join must sort
-    the full table, which tiny query sets don't amortize).
-
-    NOTE: on a miss the returned index is NOT a lower bound (the two
-    kernels differ there) — callers must treat idx as valid only where
-    hit is True.  Every pipeline call site already does."""
-    C = thi.shape[0]
-    nq = 1
-    for d in qhi.shape:
-        nq *= d
-    # cost model: join = ~2 sorts over (C + nq) lanes; binary search =
-    # log2(C) gather passes over nq lanes, and a gather pass costs ~2x
-    # a sort pass per lane on this hardware (docs/DESIGN.md)
-    if nq * max(C.bit_length(), 1) >= C + nq:
-        return join_lookup_hilo(thi, tlo, qhi, qlo, verify=verify)
-    return lower_bound_hilo(thi, tlo, qhi, qlo)
 
 
 @partial(jax.jit, static_argnames=("k", "canonical"))
@@ -218,8 +124,8 @@ def neighbor_counts(
     and left-sibling group (b·suffix_{k-1}(x)).
 
     Returns (right_ext [4,C], left_ext [4,C], right_sib_max [C],
-    left_sib_max [C]) — base axis first (TPU layout; minor dims pad to
-    128 lanes).  SENTINEL lanes return zeros.
+    left_sib_max [C]) — base axis first.  SENTINEL lanes return
+    zeros.
     """
     hi, lo = spec.hi, spec.lo
     hi_mask = jnp.uint32((1 << (2 * k - 32)) - 1 if 2 * k > 32 else 0)

@@ -6,12 +6,10 @@ Division of labor (same rationale as ops/partition): the per-k-mer
 heavy lifting — condensation into contigs and the final spectrum
 compaction — runs on device (sort/probe kernels over millions of
 lanes), while the clip-and-re-merge FIXPOINT iteration runs on host at
-CONTIG granularity (tens of thousands of nodes).  The previous design
-re-ran the full device condensation every round: 8 rounds x ~25s of
-k-mer-scale rebuilds = 200s of steady-state execution per 250k-read
-assembly (measured), against milliseconds of contig-scale host work
-for the identical result.  Equivalence: removing whole contigs and
-re-condensing the k-mer graph merges exactly the contig chains the
+CONTIG granularity (tens of thousands of nodes), in place of a full
+device condensation every round: k-mer-scale rebuilds against
+milliseconds of contig-scale host work for the identical result.
+Equivalence: removing whole contigs and re-condensing the k-mer graph merges exactly the contig chains the
 removal exposes, and the merged contig's abundance equals
 float32(sum of member count_sums) / float32(sum of klens) — the
 oracle's formula over member k-mers, computed bit-identically from the
@@ -40,10 +38,8 @@ class ClipState:
     contigs plus the full post-clip merge structure (survivor ->
     member chain in path order, merged klen / count sums, contig
     adjacency) — enough to materialize the post-clip contig graph
-    WITHOUT re-condensing the k-mer table (VERDICT r3 item 3: the
-    second device condensation was ~30s of the 75s front half at 1M
-    reads).  cycle_merged flags that a merge closed a cycle; the
-    contig boundary of a merged cycle is seed-order dependent while a
+    WITHOUT re-condensing the k-mer table.  cycle_merged flags that a
+    merge closed a cycle; the contig boundary of a merged cycle is seed-order dependent while a
     device re-condensation breaks cycles at their lexicographically
     smallest k-mer, so callers must fall back to re-condensing then
     (rare: requires a cycle exposed by a clipped attachment)."""
@@ -58,8 +54,8 @@ class ClipState:
 
 def _adjacency_lists(out_e: np.ndarray, n: int) -> list[list[int]]:
     """[4, n] edge array -> per-contig sorted unique successor lists,
-    as one vectorized unique + split (the per-contig Python set loop
-    was 1.65s of host time at 315k contigs, measured)."""
+    as one vectorized unique + split, not a per-contig Python set
+    loop."""
     mask = out_e >= 0
     src = np.broadcast_to(np.arange(n, dtype=np.int64), out_e.shape)[mask]
     dst = out_e[mask].astype(np.int64)
@@ -247,9 +243,8 @@ def _host_clip_rounds(
             inc[v].append(u)
     doomed_mask = np.zeros(n, bool)
 
-    # precomputed decision arrays (updated on merge): the per-call
-    # np.float32 constructions were the hottest line of the scan at 1M+
-    # contigs (measured 2.5s/1.3M calls)
+    # precomputed decision arrays (updated on merge): per-call
+    # np.float32 constructions would be the hottest line of the scan
     abv = np.float32(csum) / np.float32(klen)  # float32 abundance
     if err_ratio > 0.0:
         rv = np.where(klen <= err_klen, err_ratio, ratio).astype(np.float32)
@@ -317,8 +312,7 @@ def _host_clip_rounds(
     # where a removal dropped a degree.  Decision code is byte-for-byte
     # the full-scan logic, so the mask is identical (doom rounds are
     # jacobi; removals commute; chain merges are confluent — summed
-    # attrs and final topology do not depend on merge order).  The
-    # full-rescan version measured 37.5s at 3M contigs.
+    # attrs and final topology do not depend on merge order).
     changed: set[int] = set()
     cycle_merged = False
     for rnd in range(config.correction_rounds):
@@ -458,10 +452,9 @@ def _device_clip_remap(
     # front-compact kept nodes (dropping preserves (hi, lo) sortedness).
     # Sort only (key, iota) and GATHER the payload arrays through the
     # resulting permutation: a 6-operand sort at the 25M-lane 1M-read
-    # table tripled the program's transient HBM, which under pass-2
-    # allocator fragmentation degraded this program's execution 400x
-    # (measured 1302s vs 3s) — the permutation form keeps peak
-    # footprint to the sort pair plus one gather at a time.
+    # table triples the program's transient memory; the permutation
+    # form keeps peak footprint to the sort pair plus one gather at a
+    # time.
     iota = jax.lax.broadcasted_iota(jnp.uint32, (C2, 1), 0)[:, 0]
     MSB = jnp.uint32(0x80000000)
     skey = jnp.where(keep, iota, iota | MSB)
@@ -474,11 +467,6 @@ def _device_clip_remap(
     node_count = jnp.where(nvalid, ca.node_count[perm], 0)
     node_cid = jnp.where(nvalid, nc[perm], -1)
     node_off = jnp.where(nvalid, new_off[perm], -1)
-    abundance = jnp.where(
-        new_klen > 0,
-        new_csum.astype(jnp.float32) / new_klen.astype(jnp.float32),
-        0.0,
-    )
     return ContigArrays(
         node_hi=node_hi,
         node_lo=node_lo,
@@ -486,7 +474,6 @@ def _device_clip_remap(
         node_cid=node_cid,
         node_off=node_off,
         klen=new_klen,
-        abundance=abundance,
         count_sum=new_csum,
         head_lane=hl,
         tail_lane=tl,
@@ -599,7 +586,7 @@ def clip_tips_graph(
 ) -> tuple[Spectrum, ContigArrays | None]:
     """Iterated tip clipping to fixpoint, matching oracle clip_tips,
     returning BOTH the clipped spectrum and the post-clip contig graph
-    (VERDICT r3 item 3: condense once, not twice — the host clip rounds
+    (condense once, not twice — the host clip rounds
     already computed every surviving merged chain, so the pipeline must
     not re-condense the clipped table from scratch).
 

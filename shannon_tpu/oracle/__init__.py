@@ -4,7 +4,7 @@ This package is the executable specification of the assembler: a slow,
 exact, CPU-only implementation of every pipeline stage with the same
 observable behavior the reference pipeline has (k-mer spectrum ->
 abundance/extension correction -> condensed dBG contigs -> components ->
-multibridging -> sparse flow -> transcripts).  The TPU pipeline is tested
+multibridging -> sparse flow -> transcripts).  The device pipeline is tested
 stage-by-stage against it (k-mer spectrum equality, contig-set equality,
 transcript-set equality up to reverse complement — the judge metric in
 BASELINE.json).

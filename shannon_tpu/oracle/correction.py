@@ -1,7 +1,7 @@
 """Oracle error correction — the reference's abundance filter + iterative
 extension correction (SURVEY.md §3.1 extension_correction, §4.2).
 
-Spec (binding for the TPU pipeline):
+Spec (binding for the device pipeline):
 
   1. **Abundance filter**: drop k-mers with count < min_abundance
      (0 = auto — choose_min_abundance), then, when min_abundance > 1,
@@ -196,9 +196,9 @@ def dead_end_rescue(
     while a stretch still sub-threshold after k+2 rounds of regrowth
     belongs to expression ~the cut's ladder floor below the median,
     where recovery is marginal at any threshold.  (The cap is also the
-    cost: each round is two [8, C] gathers at the RAW table; the
-    original 3k cap measured 144s of the 1M-read e2e regrowing
-    doomed deep-sub-threshold interiors.)  Rescued k-mers keep their
+    cost: each round is two [8, C] gathers at the RAW table, and a 3k
+    cap spends most of its rounds regrowing doomed deep-sub-threshold
+    interiors.)  Rescued k-mers keep their
     true counts.
 
     Why: transcript END k-mers are covered only by reads starting at

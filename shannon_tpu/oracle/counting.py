@@ -1,7 +1,7 @@
 """Oracle k-mer counting — the semantics Jellyfish provides the reference
 (SURVEY.md §2 L0, §3.2): exact (k-mer -> count) table over all reads.
 
-Spec (binding for the TPU pipeline):
+Spec (binding for the device pipeline):
   * a k-mer is any window of k consecutive *valid* bases (A/C/G/T) in a
     read; windows containing N or crossing the read end produce nothing;
   * the packed value of a k-mer reads bases left->right as big-endian

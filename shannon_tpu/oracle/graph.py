@@ -1,7 +1,7 @@
 """Oracle condensed de Bruijn graph (reference stage 2 output + stage 3
 graph prep; SURVEY.md §4.2, §3.1 kmers_for_component).
 
-Spec (binding for the TPU pipeline):
+Spec (binding for the device pipeline):
 
   * **Node space**: directed graph over *oriented* k-mers.  In canonical
     (double-stranded) mode both orientations of every alive canonical

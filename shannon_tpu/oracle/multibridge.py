@@ -1,7 +1,7 @@
 """Oracle multibridging — read threading + repeat-node resolution
 (reference stage 4 MB; SURVEY.md §3.1 'Multibridging', §4.3).
 
-Spec (binding for the TPU pipeline):
+Spec (binding for the device pipeline):
 
   * **Threading**: each read is mapped to a node path once, on the
     condensed graph: walk the read's k-mers (as-is orientation; in

@@ -10,8 +10,8 @@ against mutated sequences is ever needed — splits only refine paths).
 Path storage is FLAT ARRAYS (`_flat` node ids + `_offs` row offsets +
 `path_weights`), not Python lists: evidence accumulation, dedup,
 condensation remapping, and split rerouting are numpy array passes that
-scale with unique-path volume at C speed (VERDICT r1 item 5 — the MB
-host loops were the last read-scale-adjacent Python cost).  `paths`
+scale with unique-path volume at C speed (the MB host loops were the
+last read-scale-adjacent Python cost).  `paths`
 materializes the list view lazily for callers that want Python lists;
 all semantics (dedup order, weight merging) are identical to the
 original list implementation (tested).
@@ -143,10 +143,9 @@ class NodeGraph:
         # structurally-changed node set since the last condense: None =
         # unknown (first condense scans every node); afterwards
         # add_node/add_edge/remove_node record their endpoints and
-        # condense re-examines ONLY chains through them — the repeated
-        # full-graph Python scan was 11.3s of a 250k-read assembly's
-        # back half (57 calls, measured) for splits touching a few
-        # hundred nodes each round
+        # condense re-examines ONLY chains through them — a repeated
+        # full-graph Python scan per call costs the whole graph for
+        # splits touching a few hundred nodes each round
         self._touched: set[int] | None = None
         self.set_paths(list(paths) if paths else [], path_weights)
 

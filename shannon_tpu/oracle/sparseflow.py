@@ -1,7 +1,7 @@
 """Oracle sparse flow — per-node sparsest flow decomposition (reference
 stage 4 SF; SURVEY.md §3.1 'Sparse flow', §4.3).
 
-Spec (binding for the TPU pipeline):
+Spec (binding for the device pipeline):
 
   * For every remaining X-node v (indeg>1, outdeg>1 after MB), take
     in-flows a_i = abund(u_i) / outdeg(u_i) and out-flows

@@ -7,8 +7,7 @@ Per device (shard_map over the 1-D mesh axis 'd'):
      reference gets from Jellyfish's per-thread hashes;
   2. hash-bucket the local unique (k-mer, count) entries by owner
      device (multiplicative hash mod D) into fixed-size buckets;
-  3. all_to_all the buckets (the one communication-heavy phase; rides
-     ICI in a slice);
+  3. all_to_all the buckets (the one communication-heavy phase);
   4. merge the D received buckets (sort + segment-sum of counts) —
      each device now owns the exact global counts of its hash slice;
   5. all_gather the slices and re-sort into the full sorted spectrum,
@@ -22,11 +21,11 @@ reported via the returned flag, never silent.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from shannon_tpu.ops.count import Spectrum, _sort3, _unique_reduce
@@ -61,20 +60,29 @@ def count_spectrum_sharded(
     if bucket_cap is None:
         # balanced hash => ~capacity/n_dev per bucket; 2x slack
         bucket_cap = max(-(-capacity // n_dev) * 2, 8)
+    return _sharded_program(mesh, k, capacity, canonical, bucket_cap)(
+        codes, lengths
+    )
+
+
+@lru_cache(maxsize=None)
+def _sharded_program(mesh, k, capacity, canonical, bucket_cap):
+    """The jitted shard_map of count_spectrum_sharded, built once per
+    static configuration so later batches reuse its compiled program."""
+    n_dev = mesh.devices.size
 
     def local(codes_l, lengths_l):
         # 1. local pre-count
         hi, lo, valid = extract_kmers(codes_l, lengths_l, k, canonical)
         return _sharded_tail(hi, lo, valid, n_dev, capacity, bucket_cap)
 
-    fn = shard_map(
+    return jax.jit(shard_map(
         local,
         mesh=mesh,
         in_specs=(P(READS_AXIS, None), P(READS_AXIS)),
         out_specs=(P(), P()),
         check_vma=False,
-    )
-    return jax.jit(fn)(codes, lengths)
+    ))
 
 
 def count_spectrum_sharded_packed(
@@ -88,14 +96,27 @@ def count_spectrum_sharded_packed(
     length: int | None = None,
     mask: jnp.ndarray | None = None,
 ) -> tuple[Spectrum, jnp.ndarray]:
-    """count_spectrum_sharded over the 2-bit transfer format (VERDICT
-    r3 item 1) — identical collective structure and output; the packed
+    """count_spectrum_sharded over the 2-bit transfer format — identical
+    collective structure and output; the packed
     upload is sharded over the reads axis like the codes were.  `mask`
     (mid-read invalid positions, io.pack.invalid_mask_words) is only
     passed for batches that contain them."""
     n_dev = mesh.devices.size
     if bucket_cap is None:
         bucket_cap = max(-(-capacity // n_dev) * 2, 8)
+    args = (words, lengths) if mask is None else (words, lengths, mask)
+    return _sharded_packed_program(
+        mesh, k, capacity, canonical, bucket_cap, length, mask is not None
+    )(*args)
+
+
+@lru_cache(maxsize=None)
+def _sharded_packed_program(mesh, k, capacity, canonical, bucket_cap,
+                            length, with_mask):
+    """The jitted shard_map of count_spectrum_sharded_packed, built once
+    per static configuration so later batches reuse its compiled
+    program."""
+    n_dev = mesh.devices.size
 
     def local_packed(words_l, lengths_l, *mask_l):
         hi, lo, valid = extract_kmers_packed(
@@ -109,18 +130,15 @@ def count_spectrum_sharded_packed(
         return _sharded_tail(hi, lo, valid, n_dev, capacity, bucket_cap)
 
     in_specs = [P(READS_AXIS, None), P(READS_AXIS)]
-    args = [words, lengths]
-    if mask is not None:
+    if with_mask:
         in_specs.append(P(READS_AXIS, None))
-        args.append(mask)
-    fn = shard_map(
+    return jax.jit(shard_map(
         local_packed,
         mesh=mesh,
         in_specs=tuple(in_specs),
         out_specs=(P(), P()),
         check_vma=False,
-    )
-    return jax.jit(fn)(*args)
+    ))
 
 
 def _sharded_tail(hi, lo, valid, n_dev, capacity, bucket_cap):
@@ -225,6 +243,8 @@ def count_reads_spectrum_sharded(
         batch = ReadBatch(codes=batch_codes, lengths=batch_lengths)
     n_dev = mesh.devices.size
     n = batch.n_reads
+    rows2 = NamedSharding(mesh, P(READS_AXIS, None))
+    rows1 = NamedSharding(mesh, P(READS_AXIS))
     total: Spectrum | None = None
     overflowed = False
     pending: tuple | None = None  # (prev_total, part, ovf, merged_flag)
@@ -253,10 +273,12 @@ def count_reads_spectrum_sharded(
                 lengths = np.pad(lengths, (0, tgt - rows))
                 if mask is not None:
                     mask = np.pad(mask, ((0, tgt - rows), (0, 0)))
+        # each device's row block goes straight to that device, not
+        # through device 0
         part, ovf = count_spectrum_sharded_packed(
-            jnp.asarray(words), jnp.asarray(lengths), k, capacity, mesh,
-            canonical, length=batch.pad_length,
-            mask=None if mask is None else jnp.asarray(mask),
+            jax.device_put(words, rows2), jax.device_put(lengths, rows1),
+            k, capacity, mesh, canonical, length=batch.pad_length,
+            mask=None if mask is None else jax.device_put(mask, rows2),
         )
         ovf.copy_to_host_async()
         _resolve()

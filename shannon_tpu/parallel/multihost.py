@@ -1,12 +1,13 @@
 """Multi-host initialization (SURVEY.md §8 M5, BASELINE config 5).
 
 One call sets up `jax.distributed` when launched under a multi-host
-coordinator (JAX_COORDINATOR_ADDRESS / TPU pod env); it is a no-op in a
+coordinator (JAX_COORDINATOR_ADDRESS); it is a no-op in a
 single-process session, so every entry point can call it
-unconditionally.  Read sharding across hosts composes with the in-slice
+unconditionally.  Read sharding across hosts composes with the local
 mesh: each host feeds its local shard of the interleaved read files
 into the same `count_spectrum_sharded` all-to-all (the global mesh axis
-spans all chips of all hosts — ICI within a slice, DCN across).
+spans all devices of all hosts; on GPUs NCCL carries the
+collectives).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def init_distributed() -> bool:
     addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if addr and not _distributed_initialized():
         if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-            # CPU multi-process collectives need gloo (TPU uses ICI/DCN)
+            # CPU multi-process collectives need gloo (GPUs use NCCL)
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=addr,
@@ -88,9 +89,9 @@ def allgather_ragged(a):
 def gather_evidence(flat, offs, weights):
     """Gather per-host threading evidence (flat node ids, row offsets,
     weights — ops/thread.runs_to_flat_paths format) into the global
-    evidence set, replicated on every process (VERDICT r3 item 2: the
-    back half previously ran on local evidence only, so each host wrote
-    a different, incomplete transcripts.fasta).
+    evidence set, replicated on every process (a back half on local
+    evidence only would write a different, incomplete transcripts.fasta
+    on each host).
 
     Rank-order concatenation reproduces the single-process evidence
     order exactly: hosts own contiguous, ascending byte ranges of the
@@ -113,8 +114,8 @@ def gather_evidence(flat, offs, weights):
 
 
 def route_evidence_ownership(flat, offs, weights, owner_of_node, volumes=None):
-    """Component-ownership evidence exchange (docs/SCALING.md item 3,
-    built per VERDICT r4 item 3): instead of all-gathering ALL evidence
+    """Component-ownership evidence exchange (docs/SCALING.md item 3):
+    instead of all-gathering ALL evidence
     to every host (communication and assembly both scale with the GLOBAL
     read count), each path is routed to the single host that OWNS its
     component — owner(component) = min-contig-id label mod H, identical
@@ -171,6 +172,8 @@ def route_evidence_ownership(flat, offs, weights, owner_of_node, volumes=None):
         proc_of_dev[di] = d.process_index
         if first_dev_of_proc[d.process_index] is None:
             first_dev_of_proc[d.process_index] = di
+    if (np.diff(proc_of_dev) < 0).any():
+        raise ValueError("mesh devices must be ordered by process")
     my_first = first_dev_of_proc[pid]
 
     buckets: list[np.ndarray] = []
@@ -335,7 +338,7 @@ def count_reads_spectrum_multihost(
     are padded to a uniform per-host row count, assembled into global
     arrays over the cross-host mesh
     (jax.make_array_from_process_local_data), and counted with the
-    packed sharded program (hash all_to_all rides ICI/DCN).  Mirrors
+    packed sharded program (one hash all_to_all).  Mirrors
     parallel.distributed.count_reads_spectrum_sharded, including the
     packed uploads and the one-batch-lagged async overflow resolution.
     Returns (replicated global Spectrum, overflowed).

@@ -85,8 +85,7 @@ def simulate_gene_isoforms(
     isoforms of one gene share exon sequence, so the condensed graph has
     X-nodes whose flow must be decomposed into the sparsest consistent
     path set — i.i.d. random transcripts (simulate_transcripts) never
-    create this (VERDICT r4 missing #2: the 4M-read run resolved ZERO
-    SF splits; this generator is the corrective).
+    create this (a run on them resolves no SF splits).
 
     Returns (isoforms, gene_of): flat isoform list + gene id per isoform.
     Isoform subsets within a gene are distinct; single-exon skips make
@@ -173,6 +172,38 @@ def sample_reads(
                     r = revcomp_str(r)
                 reads.append(mutate(rng, r, error_rate))
     return reads
+
+
+def simulate_expression(
+    rng: np.random.Generator,
+    n_reads: int,
+    n_transcripts: int = 500,
+    length: int = 1500,
+    read_length: int = 100,
+    error_rate: float = 0.01,
+    paired: bool = False,
+    insert_size: int = 300,
+) -> tuple[list[str], list[str]]:
+    """(transcripts, reads): the benchmark transcriptome — i.i.d.
+    transcripts with log-normal abundance (sigma 1, mean 1) — sampled to
+    about `n_reads` reads, or about `n_reads` mate pairs when `paired`
+    (interleaved as sample_paired_reads returns them)."""
+    abund = np.exp(rng.normal(0, 1, n_transcripts))
+    abund = (abund / abund.mean()).tolist()
+    ts = simulate_transcripts(rng, n=n_transcripts, length=length)
+    bases = n_reads * read_length * (2 if paired else 1)
+    cov = bases / (n_transcripts * length)
+    if paired:
+        reads = sample_paired_reads(
+            rng, ts, abundances=abund, coverage=cov, read_length=read_length,
+            insert_size=insert_size, error_rate=error_rate,
+        )
+    else:
+        reads = sample_reads(
+            rng, ts, abundances=abund, coverage=cov, read_length=read_length,
+            error_rate=error_rate,
+        )
+    return ts, reads
 
 
 def sample_paired_reads(

@@ -101,7 +101,7 @@ def test_correct_spectrum_parity(rng, k, canonical):
     assert got.to_dict() == oracle
 
 
-# ---- auto min_abundance (round 5: VERDICT r4 item 1) -----------------
+# ---- auto min_abundance ----------------------------------------------
 
 
 def test_choose_min_abundance_ladder():

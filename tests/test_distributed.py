@@ -1,5 +1,5 @@
 """Sharded counting parity on the 8-virtual-device CPU mesh
-(SURVEY.md §5.3: collectives exercised without a multi-chip TPU)."""
+(SURVEY.md §5.3: collectives exercised without several GPUs)."""
 
 import numpy as np
 import pytest
@@ -66,7 +66,6 @@ def test_sharded_overflow_flag(rng, mesh):
 
 def test_sharded_midscale_skewed_parity(rng, mesh):
     """Midscale sharded parity at realistic per-device table sizes
-    (VERDICT r2 weak #6: the suite only exercised <=64-read scale).
     8,192 100bp reads from a skewed (log-normal) transcriptome:
     ~190k k-mer instances, ~50k distinct — per-device buckets see the
     real hash skew, and the default 2x bucket_cap slack must absorb it
@@ -109,3 +108,24 @@ def test_sharded_strand_specific(rng, mesh):
     )
     assert not bool(overflow)
     assert sharded.to_dict() == count_kmers(reads, 17, strand_specific=True)
+
+
+def test_batched_driver_builds_one_program(rng, mesh):
+    """The batch driver builds its sharded program once per static
+    configuration: later batches reuse it instead of tracing and
+    compiling a fresh one, and the merged spectrum is the oracle's."""
+    from shannon_tpu.parallel.distributed import (
+        _sharded_packed_program,
+        count_reads_spectrum_sharded,
+    )
+
+    reads, b = _batch(rng, 256)
+    before = _sharded_packed_program.cache_info()
+    spec, overflow = count_reads_spectrum_sharded(
+        b, k=19, capacity=1 << 12, mesh=mesh, batch_reads=64
+    )
+    after = _sharded_packed_program.cache_info()
+    assert not overflow
+    assert spec.to_dict() == count_kmers(reads, 19)
+    assert after.misses - before.misses <= 1
+    assert after.hits - before.hits >= 3  # 4 batches, one build

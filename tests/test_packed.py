@@ -1,5 +1,5 @@
-"""Parity tests for the 2-bit packed transfer format (VERDICT r3 item
-1 / SURVEY.md §8 M1 "2-bit-packed read batches"): every packed-input
+"""Parity tests for the 2-bit packed transfer format (SURVEY.md §8 M1
+"2-bit-packed read batches"): every packed-input
 device program must be bit-identical to its uint8-codes twin, including
 batches with mid-read N's (the only validity information pack_words
 loses, recovered via invalid_mask_words)."""

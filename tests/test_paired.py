@@ -171,7 +171,7 @@ def test_insert_stats_estimated_from_same_contig_pairs():
 
 
 def test_two_node_gap_join_resolves_double_repeat(rng):
-    """End-to-end known answer (VERDICT r1 item 4): a repeat of TWO
+    """End-to-end known answer: a repeat of TWO
     contigs, each longer than the read, bridged only by mate pairs
     whose gap spans both — requires the insert-licensed 2-intermediate
     gap join; chimeras must not appear."""

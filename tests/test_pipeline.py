@@ -41,7 +41,7 @@ def test_backend_parity(dataset):
 def test_150bp_auto_pad_end_to_end(rng):
     """Auto read_pad_length (config default 0) sizes the device batch to
     the 160 pad for a 150bp library — no truncation — and the full
-    device pipeline matches the oracle (VERDICT r2 item 2)."""
+    device pipeline matches the oracle."""
     ts = simulate_transcripts(rng, n=3, length=600)
     reads = sample_reads(
         rng, ts, coverage=25, read_length=150, error_rate=0.005
@@ -103,8 +103,8 @@ def test_run_pipeline_paired(rng, tmp_path):
 def test_paired_ingest_file_vs_memory_batches(rng, tmp_path):
     """The file route (ingest_paired_files) and the in-memory route
     (pack_reads(normalize_mate2(...), paired=True)) must produce
-    identical batches — codes, lengths, paired flag (VERDICT r2 weak
-    #7: the two mate-2 normalizations were never pinned together)."""
+    identical batches — codes, lengths, paired flag (the two mate-2
+    normalizations pinned together)."""
     from shannon_tpu.io.pack import pack_reads
     from shannon_tpu.pipeline import ingest_paired_files, normalize_mate2
     from shannon_tpu.sim import sample_paired_reads
@@ -148,7 +148,7 @@ def test_cli_end_to_end(dataset, tmp_path, capsys):
 
 def test_cli_pair_knobs_flow_to_config(tmp_path, monkeypatch):
     """--no-pairs / --insert-size / --insert-size-std reach the config
-    (VERDICT r3: the CLI lacked the pairing knobs the config exposes)."""
+    (the CLI exposes the config's pairing knobs)."""
     import shannon_tpu.pipeline as pl
     from shannon_tpu.cli import main
     from shannon_tpu.pipeline import AssemblyResult
@@ -187,7 +187,7 @@ def test_paired_ingest_routes_identical(rng, tmp_path):
     """The two mate-2 normalization routes — in-memory interleaved
     reads through normalize_mate2 + pack_reads, and left/right files
     through run_pipeline's interleave — must produce identical packed
-    batches (VERDICT r2 weak #7)."""
+    batches."""
     from shannon_tpu.io.pack import pack_reads
     from shannon_tpu.pipeline import normalize_mate2
     from shannon_tpu.sim import sample_paired_reads

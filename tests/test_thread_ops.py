@@ -71,8 +71,8 @@ def test_threading_parity(rng, error_rate, rescue):
 
 def test_threading_150bp_parity(rng):
     """150bp reads (the dominant modern Illumina shape) push the window
-    count past 127, exercising the widened packed compaction key
-    (VERDICT r2 item 2); parity vs oracle must hold."""
+    count past 127, exercising the widened packed compaction key;
+    parity vs oracle must hold."""
     ts = simulate_transcripts(rng, n=2, length=500) + simulate_isoforms(
         rng, exon_length=220
     )

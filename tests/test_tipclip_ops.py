@@ -101,7 +101,7 @@ def _graph_fingerprint(ca, k, cfg):
 
 @pytest.mark.parametrize("error_rate", [0.01, 0.03])
 def test_clip_remap_matches_recondensation(rng, error_rate):
-    """VERDICT r3 item 3 (condense once): the ContigArrays that
+    """Condense once: the ContigArrays that
     clip_tips_graph assembles from the host clip state must be
     structurally identical to a fresh device condensation of the
     clipped spectrum — same contigs, abundances, edges, rc pairing,

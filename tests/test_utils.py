@@ -47,29 +47,33 @@ def test_unique_first_sorted_empty():
     assert int(n) == 0
 
 
-def test_join_lookup_matches_binary_search(rng):
-    from shannon_tpu.ops.spectrum import join_lookup_hilo, lower_bound_hilo
+@pytest.mark.parametrize("C, n_real", [(1, 1), (8, 5), (512, 512), (1000, 700)])
+def test_lookup_matches_searchsorted(rng, C, n_real):
+    """lookup_hilo == numpy searchsorted on the 64-bit keys, exactly:
+    hits, misses, duplicates, extremes, and queries equal to the
+    SENTINEL pad key (which hit the first pad lane)."""
+    from shannon_tpu.ops.spectrum import lookup_hilo
 
-    C, nq = 512, 2000
-    table = np.sort(
-        rng.choice(1 << 20, size=C, replace=False).astype(np.uint64)
+    real = np.sort(
+        rng.choice(1 << 40, size=n_real, replace=False).astype(np.uint64)
     )
-    thi = jnp.asarray((table >> 32).astype(np.uint32))
-    tlo = jnp.asarray((table & 0xFFFFFFFF).astype(np.uint32))
-    # query mix: present keys, absent keys, duplicates, extremes
+    table = np.full(C, np.uint64(0xFFFFFFFFFFFFFFFF))
+    table[:n_real] = real
     q = np.concatenate([
-        rng.choice(table, size=nq // 2),
-        rng.integers(0, 1 << 20, size=nq // 2).astype(np.uint64),
-        np.array([0, (1 << 20) - 1], dtype=np.uint64),
+        rng.choice(real, size=300),
+        rng.integers(0, 1 << 40, size=300).astype(np.uint64),
+        np.array([0, (1 << 40) - 1, 0xFFFFFFFFFFFFFFFF], dtype=np.uint64),
     ])
-    qhi = jnp.asarray((q >> np.uint64(32)).astype(np.uint32))
-    qlo = jnp.asarray((q & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-    i1, h1 = lower_bound_hilo(thi, tlo, qhi, qlo)
-    i2, h2 = join_lookup_hilo(thi, tlo, qhi, qlo)
-    np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
-    # indices must agree wherever there is a hit
-    hm = np.asarray(h1)
-    np.testing.assert_array_equal(np.asarray(i1)[hm], np.asarray(i2)[hm])
+    split = lambda x: (  # noqa: E731
+        jnp.asarray((x >> np.uint64(32)).astype(np.uint32)),
+        jnp.asarray((x & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
+    )
+    idx, hit = lookup_hilo(*split(table), *split(q))
+    pos = np.minimum(np.searchsorted(table, q), C - 1)
+    want = table[pos] == q
+    np.testing.assert_array_equal(np.asarray(hit), want)
+    # a lower bound everywhere, clamped to the last lane
+    np.testing.assert_array_equal(np.asarray(idx), pos)
 
 
 def test_host_read_slice_single_process():
